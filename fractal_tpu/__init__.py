@@ -1,4 +1,4 @@
-"""fractal_tpu — a TPU-native fractal rendering framework.
+"""fractal_tpu — a fractal rendering framework for accelerators (JAX).
 
 A from-scratch JAX / XLA / Pallas re-design of the capabilities of the
 reference renderer (Icelk/fractal-renderer): escape-time fractals

@@ -108,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "Use the arrow keys and scroll to move around.")
 
     # --- framework extensions ---
-    ext = p.add_argument_group("TPU framework extensions")
+    ext = p.add_argument_group("Extensions")
     ext.add_argument("--power", type=int, default=2,
                      help="Exponent d in z^d + c — honored by multibrot, "
                           "mandelbrot (alias of multibrot), and julia.")

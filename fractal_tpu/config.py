@@ -129,7 +129,7 @@ def normalize_algo(name: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """The full render configuration (reference `Config`, calc/src/lib.rs:21-37),
-    plus TPU-framework extensions (power, supersample, precision, seed).
+    plus framework extensions (power, supersample, precision, seed).
 
     Registered as a JAX pytree: continuous parameters (pos, scale, exposure,
     limits, colors-as-floats, julia_set) are traced leaves so a jitted render

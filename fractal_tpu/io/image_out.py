@@ -16,10 +16,17 @@ match ravif; threads 0 = encoder default all-core behavior.  Near-lossless:
 YCbCr round-trip error ≤ ~2/255, covered by the decode-roundtrip tests in
 tests/test_native_io.py.  Fallback when the shim or libheif is missing:
 Pillow's native `_avif` C extension over libavif+libaom with the same
-knobs (``subsampling="4:4:4"``, ``range="full"``).
+knobs (``subsampling="4:4:4"``, ``range="full"``) — AVIF is optional, and
+without either encoder it fails with an error naming both.
+
+PNG needs nothing beyond numpy: the native shim (libpng) when built, else
+a numpy + zlib writer.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -36,42 +43,62 @@ def output_filename(name: str, fmt: str = "avif") -> str:
     return f"{name}.{fmt}"
 
 
-def _to_pil(img: np.ndarray):
-    from PIL import Image
-
+def _check_rgb(img: np.ndarray) -> np.ndarray:
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8, got {img.shape} {img.dtype}")
-    return Image.fromarray(img, mode="RGB")
+    return img
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """PNG encoding of an (H, W, 3) uint8 image: 8-bit RGB, filter 0 on
+    every row, one zlib stream."""
+    img = _check_rgb(img)
+    h, w, _ = img.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # leading filter byte 0
+    raw[:, 1:] = img.reshape(h, 3 * w)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def encode_image(img: np.ndarray, path: str) -> None:
     """Encode (H, W, 3) uint8 to `path`; format chosen by extension."""
-    lower = path.lower()
-    if lower.endswith(".png"):
-        from fractal_tpu.io import native
+    from fractal_tpu.io import native
 
+    lower = path.lower()
+    img = _check_rgb(img)
+    if lower.endswith(".png"):
         if native.available():
             native.write_png(img, path)
             return
-        _to_pil(img).save(path, format="PNG")
+        with open(path, "wb") as f:
+            f.write(png_bytes(img))
     elif lower.endswith(".avif"):
-        from fractal_tpu.io import native
-
         if native.avif_available():
-            img = np.ascontiguousarray(img)
-            if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-                raise ValueError(
-                    f"expected (H, W, 3) uint8, got {img.shape} {img.dtype}")
             native.write_avif(img, path, quality=AVIF_QUALITY,
                               speed=AVIF_SPEED)
             return
-        _to_pil(img).save(
+        try:
+            from PIL import Image
+        except ImportError:
+            raise RuntimeError(
+                "AVIF output needs the native encoder (native/libfastimg.so "
+                "built against libheif) or Pillow; neither is available — "
+                "use --format png") from None
+        Image.fromarray(img, mode="RGB").save(
             path, format="AVIF", quality=AVIF_QUALITY, speed=AVIF_SPEED,
             subsampling=AVIF_SUBSAMPLING, range=AVIF_RANGE,
         )
     else:
-        _to_pil(img).save(path)
+        raise ValueError(f"unsupported image format: {path!r} "
+                         f"(png or avif)")
 
 
 def write_image(img: np.ndarray, name: str, fmt: str = "avif", verbose: bool = True) -> str:

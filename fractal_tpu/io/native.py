@@ -5,7 +5,7 @@ ours is a C++ shared library providing a libpng PNG writer and an AVIF
 encoder over dlopen()ed system libheif→libaom (the reference's AV1 encode,
 src/lib.rs:326-333).  Falls back cleanly (``available() == False`` /
 ``avif_available() == False``) when the library or libheif is missing —
-Pillow then handles encoding.
+the PNG writer of io/image_out.py and (for AVIF) Pillow then take over.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def _lib_path() -> str:
 
 def _try_build(path: str) -> None:
     """Build libfastimg.so from source on first use (fresh checkouts have
-    no binaries).  Silent no-op on any failure — Pillow handles encoding."""
+    no binaries).  Silent no-op on any failure — see the module docstring."""
     import shutil
     import subprocess
 

@@ -1,4 +1,4 @@
-"""Barnsley fern — batched chaos game (IFS), TPU-native.
+"""Barnsley fern — batched chaos game (IFS) as one device program.
 
 Reference semantics (src/lib.rs:418-463 ``fern`` + 392-408 ``subtract_pixel``
 + 271-319 replicate-and-reduce):
@@ -15,9 +15,9 @@ Reference semantics (src/lib.rs:418-463 ``fern`` + 392-408 ``subtract_pixel``
   * the N-thread version renders N independent ferns with iterations/N each
     and combines them with per-pixel saturating adds (src/lib.rs:271-319).
 
-TPU re-design: the walk is inherently sequential per walker, so — exactly
-like the reference scales by replication — we run K independent walkers
-(vectorized over the VPU) for iterations/K steps each, accumulate a hit-count
+Data-parallel re-design: the walk is inherently sequential per walker, so —
+exactly like the reference scales by replication — we run K independent
+walkers (vectorized) for iterations/K steps each, accumulate a hit-count
 histogram with scatter-add, and apply the darkening as a closed-form
 post-pass: because every pixel starts at the same background value and the
 per-hit map p → trunc(p·f) is a fixed scalar map, the value after n hits is a
@@ -54,18 +54,16 @@ _FERN_COEFFS = np.array(
     dtype=np.float32,
 )
 
-# Swept on a v5e chip (100M-step fern, 2000²): 8192 walkers: 3.9 s,
-# 65536: 1.5 s, 262144: 1.6 s — more walkers amortize per-step scan/RNG
-# overhead until the scatter-add saturates.
+# More walkers amortize per-step scan/RNG overhead until the scatter-add
+# saturates (a sweep on the first accelerator picked this value; not yet
+# re-swept on the GPU).
 DEFAULT_WALKERS = 65536
 
 # Steps whose plot indices are accumulated into ONE scatter-add per scan
-# body.  Measured on v5e (tools/fern_scatter_probe.py, 100M points, 2000²):
-# per-step scatters run 10.8 ns/point while a (5·64Ki,) operand runs
-# 7.3 ns/point — 1075.6 → 732.6 ms, bit-identical histogram (integer adds
-# commute; the walk stream is untouched).  S=25 measured the same as S=5,
-# so the smaller working set wins; G-way sub-histograms measured 3-11×
-# WORSE (the (G, H·W) scatter lowering serializes across groups).
+# body: fewer, larger scatters, bit-identical histogram (integer adds
+# commute; the walk stream is untouched).  Chosen by a sweep on the first
+# accelerator (S=25 measured the same as S=5, so the smaller working set
+# won); not yet re-swept on the GPU.
 SCATTER_BATCH = 5
 
 
@@ -187,11 +185,9 @@ def _fern_hits(
         else:
             r = jax.random.uniform(sub, (k,), f32)
 
-        # Branch coefficients via a 3-deep select chain instead of
-        # jnp.take: the (k, 6) gather ran at ~3 ns/point on v5e (gathers
-        # bypass the VPU), while the selects are pure vector ops —
-        # measured 535 → 39 ms for the 100M-point walk (PERF.md).  The
-        # selected constants are the same f32 values, so the walk is
+        # Branch coefficients via a 3-deep select chain instead of a
+        # (k, 6) jnp.take gather: the selects are pure elementwise ops.
+        # The selected constants are the same f32 values, so the walk is
         # bit-identical to the gather form.
         def pick(j):
             c = _FERN_COEFFS  # host constants — folded at trace time

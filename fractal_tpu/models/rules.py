@@ -11,7 +11,7 @@ exact same arithmetic works inside Pallas kernels and for the double-single
 ("ds") value representation (ops/dd.py) by substituting the arithmetic ops.
 
 All rules are expressed with mul/add/sub only (plus abs/neg), so they lower
-to pure VPU elementwise work on TPU.
+to pure elementwise work on any backend.
 """
 
 from __future__ import annotations

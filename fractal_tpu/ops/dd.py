@@ -1,26 +1,26 @@
 """Double-word ("double-single" / "double-double") arithmetic.
 
-TPUs have no hardware f64: XLA emulates it slowly and Pallas kernels cannot
-use it at all.  The reference hit exactly this wall from the other side —
-its GPU (SPIR-V, f32) port "stalled due to precision issues" (reference
-README.md:20-22) and pointed at fixed-point multi-precision as the fix.
-This module is that fix, TPU-style: every value is an unevaluated sum
-``hi + lo`` of two machine floats, giving ~2× the mantissa bits
-(f32 pairs ≈ 48-bit mantissa, f64 pairs ≈ 106-bit) while all operations
-remain plain VPU mul/adds — so the same code runs inside Pallas kernels,
-under vmap, and on the CPU backend.
+The reference's GPU (SPIR-V, f32) port "stalled due to precision issues"
+(reference README.md:20-22) and pointed at fixed-point multi-precision as
+the fix.  This module is that fix for machines whose fast arithmetic is
+f32, and the dd64 tier beyond f64: every value is an unevaluated sum ``hi + lo`` of
+two machine floats, giving ~2× the mantissa bits (f32 pairs ≈ 48-bit
+mantissa, f64 pairs ≈ 106-bit) while all operations remain plain
+mul/adds — so the same code runs inside Pallas kernels, under vmap, and on
+the CPU backend.
 
 Algorithms are the classic error-free transformations (Dekker 1971,
 Knuth TAOCP vol. 2; presented in the QD library of Hida, Li & Bailey 2000):
 
   * ``two_sum``      — 6-flop branch-free exact addition
   * ``fast_two_sum`` — 3-flop variant valid when |a| >= |b|
-  * ``two_prod``     — exact product via FMA: err = fma(a, b, -a*b)
+  * ``two_prod``     — exact product via Dekker's split
 
-TPU note: the VPU has fused multiply-add, and XLA lowers
-``jax.lax.fma``-style expressions to it; we call jnp/LAX ops that preserve
-the single-rounding property.  All functions take/return (hi, lo) pairs of
-arrays and are dtype-polymorphic (f32 pairs = "ds32", f64 pairs = "dd64").
+Compilers may contract a mul+add into a fused multiply-add, which changes
+the rounding an error-free transformation relies on; the ds32 tier's
+accuracy on the GPU is therefore checked against the f64 oracle on the
+card.  All functions take/return (hi, lo) pairs of arrays and are
+dtype-polymorphic (f32 pairs = "ds32", f64 pairs = "dd64").
 
 Used by: ops/escape_dd.py (deep-zoom escape kernel), ops/perturb.py
 (reference-orbit deltas), tests/test_dd.py (vs mpmath-style float oracles).
@@ -36,17 +36,6 @@ import jax.numpy as jnp
 DD = Tuple[jax.Array, jax.Array]  # (hi, lo), value = hi + lo
 
 
-def _fma(a, b, c):
-    """Single-rounding fused multiply-add a*b + c.
-
-    jnp does not expose fma directly as a public op on all versions; on TPU
-    XLA maps this pattern to the hardware FMA.  We go through
-    ``jax.lax`` when available and fall back to a Dekker split product
-    (still error-free, just more flops).
-    """
-    return jax.lax.fma(a, b, c) if hasattr(jax.lax, "fma") else _fma_dekker(a, b, c)
-
-
 def _split_const(dtype) -> float:
     # Dekker splitter: 2^ceil(p/2) + 1 where p = mantissa bits.
     if jnp.dtype(dtype) == jnp.float64:
@@ -54,9 +43,10 @@ def _split_const(dtype) -> float:
     return 4097.0  # 2^12 + 1 for f32 (p=24)
 
 
-def _fma_dekker(a, b, c):
-    """Error-free a*b via Dekker splitting, then add c (used only when no
-    FMA primitive exists; two roundings but exact product decomposition)."""
+def _fma(a, b, c):
+    """a*b + c with the product split exactly (Dekker) — JAX has no fused
+    multiply-add primitive, so the error-free product costs a few flops
+    more (two roundings in the final sum, the product itself exact)."""
     p, e = _two_prod_dekker(a, b)
     return (p + c) + e
 
@@ -95,7 +85,7 @@ def fast_two_sum(a, b):
 
 
 def two_prod(a, b):
-    """Exact a * b = p + e via FMA."""
+    """Exact a * b = p + e."""
     p = a * b
     e = _fma(a, b, -p)
     return p, e

@@ -1,11 +1,11 @@
 """Escape-time iteration — pure-jnp/XLA path.
 
-TPU-native re-design of the reference's per-pixel scalar loop
+Data-parallel re-design of the reference's per-pixel scalar loop
 (``recursive``, calc/src/lib.rs:245-257): instead of per-pixel early return,
 the whole image iterates in lock-step with a per-lane *active mask* and
 freeze-on-escape ``jnp.where`` selects; a chunked ``lax.while_loop`` gives
 whole-array early exit once every lane has either escaped or used its
-iteration budget.  Everything is elementwise mul/add → pure VPU work that
+iteration budget.  Everything is elementwise mul/add → pure vector work that
 XLA fuses into one loop body.
 
 Exact count semantics (matching calc/src/lib.rs:245-257):

@@ -1,7 +1,7 @@
 """Extended-exponent ("floatexp") arithmetic for extreme-depth δ-orbits.
 
 Past ~1e30× zoom the per-pixel δ quantities leave f32's exponent range
-(δc ~ 1/zoom; TPU flushes subnormals), which is exactly where the
+(δc ~ 1/zoom; subnormals flush to zero), which is exactly where the
 reference's f64 — and every plain-float renderer — dies (reference
 README.md:20-22 stalled ~1e6×; our f32 δ-orbits reach ~1e30×).  The
 classic fix (Kalles Fraktaler's ``floatexp``) stores each value as a
@@ -16,7 +16,7 @@ against a true zero.
 
 All ops are branch-free elementwise jnp (frexp/ldexp lower to exponent
 bit manipulation) — they fuse into the surrounding XLA program like any
-other VPU work, at ~5-8 primitive ops per floatexp op.
+other elementwise work, at ~5-8 primitive ops per floatexp op.
 """
 
 from __future__ import annotations

@@ -1,14 +1,20 @@
 """ctypes bindings to the native high-precision orbit walker
-(native/orbitwalk.cpp).
+(native/orbitwalk.cpp), and the exact Fraction → raw-mpf conversion that
+feeds it.
 
-The mpmath reference-orbit walk is the dominant cost of every cold deep
-frame (minutes at 20k iterations); orbitwalk.cpp replicates mpmath's
-arbitrary-precision arithmetic bit-for-bit (same raw-mpf rounding, same
-per-algo op sequence as ``perturb.py::_host_step``) and runs the loop
-natively.  ``walk()`` returns exactly what the Python loop would have
-produced — f64 orbit rows and the break index — or ``None`` when the
-library is unavailable or the walk would leave the replicated fast paths
-(the caller then falls back to the mpmath loop).
+The high-precision reference-orbit walk is the dominant cost of every cold
+deep frame; orbitwalk.cpp implements mpmath's arbitrary-precision
+arithmetic bit-for-bit (same raw-mpf rounding, same per-algo op sequence as
+the mpmath loops the tests keep as the oracle) and runs the loop natively.
+``walk()`` returns exactly what the mpmath loop would have produced — f64
+orbit rows and the break index — or ``None`` when the walk would leave the
+replicated paths.  Without the library the walk fails with a clear error:
+``make -C native`` builds it.
+
+Numbers cross the boundary as mpmath's raw mpf tuples ``(sign, man, exp,
+bc)`` (value = (-1)^sign · man · 2^exp, man odd), built from exact
+``Fraction``s by ``mpf_from_fraction`` with plain integer arithmetic — the
+main path needs no mpmath.
 
 The reference walks its orbit in plain f64 (calc/src/lib.rs:205-231); the
 high-precision walker has no reference counterpart — it exists for the
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from fractions import Fraction
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,7 +43,8 @@ def _lib_path() -> str:
 
 def _try_build(path: str) -> None:
     """Build liborbitwalk.so on first use (fresh checkouts have no
-    binaries).  Silent no-op on failure — mpmath handles the walk."""
+    binaries).  A failed build leaves the library missing, which ``walk``
+    and ``direct`` then report."""
     import shutil
     import subprocess
 
@@ -89,6 +97,54 @@ def available() -> bool:
     return _load() is not None
 
 
+def dps_to_prec(dps: int) -> int:
+    """Working precision in bits for ``dps`` decimal digits — mpmath's
+    ``workdps`` rule (libmpf.dps_to_prec)."""
+    return max(1, int(round((int(dps) + 1) * 3.3219280948873626)))
+
+
+def _normalize(sign: int, man: int, exp: int, prec: int):
+    """Round man·2^exp (man ≥ 0) to ``prec`` bits, nearest with ties to
+    even, and strip trailing zero bits — libmpf.normalize at round-nearest.
+    """
+    if not man:
+        return (0, 0, 0, 0)
+    bc = man.bit_length()
+    if bc > prec:
+        n = bc - prec
+        t = man >> (n - 1)
+        if t & 1 and ((t & 2) or (man & ((1 << (n - 1)) - 1))):
+            man = (t >> 1) + 1
+        else:
+            man = t >> 1
+        exp += n
+    tz = (man & -man).bit_length() - 1
+    return (sign, man >> tz, exp + tz, (man >> tz).bit_length())
+
+
+def mpf_from_fraction(v: Fraction, prec: int):
+    """Raw mpf of ``mpf(v.numerator) / v.denominator`` at ``prec`` bits —
+    the numerator rounded to ``prec`` bits, then a correctly rounded
+    division by the exact denominator (libmpf.from_int + mpf_div)."""
+    sign, sman, sexp, sbc = _normalize(1 if v < 0 else 0, abs(v.numerator),
+                                       0, prec)
+    den = v.denominator
+    if not sman or den == 1:
+        return (sign, sman, sexp, sbc)
+    texp = (den & -den).bit_length() - 1
+    tman = den >> texp
+    if tman == 1:
+        return _normalize(sign, sman, sexp - texp, prec)
+    extra = max(prec - sbc + tman.bit_length() + 5, 5)
+    quot, rem = divmod(sman << extra, tman)
+    if rem:
+        # a sticky bit below the kept range: nearest-even then rounds
+        # exactly as the infinitely precise quotient would
+        quot = (quot << 1) + 1
+        extra += 1
+    return _normalize(sign, quot, sexp - texp - extra, prec)
+
+
 def _mpf_args(raw):
     """(sign, man_bytes, exp) ctypes args from an mpmath raw mpf tuple.
     Returns None for non-finite specials (never produced by a walk, but
@@ -105,11 +161,14 @@ def _mpf_args(raw):
 
 def _call(fn_name: str, algo: str, power: int, prec: int, z0, c,
           iters: int, limit_sq: float, out: np.ndarray):
-    """Shared arg packing for the two walker entry points.  Returns the
-    break index n, or None to request the mpmath fallback."""
+    """Shared arg packing for the two walker entry points.  ``z0``/``c``
+    are (re, im) pairs of raw mpf tuples.  Returns the break index n, or
+    None when the walk leaves the replicated paths."""
     lib = _load()
     if lib is None:
-        return None
+        raise RuntimeError(
+            "the native orbit walker (native/liborbitwalk.so) is not built "
+            "and could not be built here; run `make -C native` first")
     # eff_power semantics live in the caller; here d == 2 means the
     # quadratic fast path, d >= 3 the exact complex-int-pow path
     if algo in ("mandelbrot", "julia", "multibrot"):
@@ -119,7 +178,7 @@ def _call(fn_name: str, algo: str, power: int, prec: int, z0, c,
     else:
         return None
     packed = []
-    for raw in (z0._mpc_[0], z0._mpc_[1], c._mpc_[0], c._mpc_[1]):
+    for raw in (z0[0], z0[1], c[0], c[1]):
         a = _mpf_args(raw)
         if a is None:
             return None
@@ -138,12 +197,12 @@ def _call(fn_name: str, algo: str, power: int, prec: int, z0, c,
 
 def walk(algo: str, power: int, prec: int, z0, c, iters: int,
          limit_sq: float) -> Optional[Tuple[np.ndarray, int]]:
-    """Native replica of the mpmath orbit loop in ``reference_orbit``.
+    """The high-precision orbit walk of ``perturb.reference_orbit``.
 
-    ``z0``/``c`` are mpmath mpc values at working precision ``prec`` bits;
-    returns ``(zs, n)`` with ``zs`` the (iters+1, 2) f64 array holding rows
-    0..n (rows past n are uninitialized, exactly like the Python loop's
-    ``np.empty`` buffer), or ``None`` to request the mpmath fallback."""
+    ``z0``/``c`` are (re, im) pairs of raw mpf tuples at working precision
+    ``prec`` bits; returns ``(zs, n)`` with ``zs`` the (iters+1, 2) f64
+    array holding rows 0..n (rows past n are uninitialized), or ``None``
+    when the walk leaves the replicated paths."""
     zs = np.empty((iters + 1, 2), np.float64)
     n = _call("orbitwalk_run", algo, power, prec, z0, c, iters, limit_sq,
               zs)
@@ -154,9 +213,10 @@ def walk(algo: str, power: int, prec: int, z0, c, iters: int,
 
 def direct(algo: str, power: int, prec: int, z0, c, iters: int,
            limit_sq: float) -> Optional[Tuple[float, float, int]]:
-    """Native replica of ``_direct_resolve``'s per-pixel loop (mpf-exact
-    escape test, escaping step not counted).  Returns (zr, zi, n) as the
-    Python loop's float(z.real)/float(z.imag)/n, or None to fall back."""
+    """``perturb._direct_resolve``'s per-pixel loop (mpf-exact escape
+    test, escaping step not counted).  Returns (zr, zi, n) as the mpmath
+    loop's float(z.real)/float(z.imag)/n, or None when the walk leaves the
+    replicated paths."""
     out = np.empty(2, np.float64)
     n = _call("orbitwalk_direct", algo, power, prec, z0, c, iters,
               limit_sq, out)

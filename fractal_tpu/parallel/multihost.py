@@ -2,20 +2,20 @@
 
 The reference is a single shared-memory process; its only "collective" is
 rayon's in-memory join.  This framework's collectives (the fern psum, the
-escape stripes' output layout) already run over ICI within a slice; this
-module is the thin entry for *multi-host* slices, where JAX needs every
-host to call ``jax.distributed.initialize`` before any device API.
+escape stripes' output layout) already run across the devices of one
+host; this module is the thin entry for *multi-host* meshes, where JAX needs
+every host to call ``jax.distributed.initialize`` before any device API.
 
-Usage (one process per host, e.g. under a TPU pod resource manager):
+Usage (one process per host, e.g. under a cluster resource manager):
 
     from fractal_tpu.parallel import multihost
-    multihost.initialize()              # env-driven (TPU pods: automatic)
+    multihost.initialize()              # env-driven where the runtime supports it
     mesh = make_mesh()                  # now spans all hosts' devices
     img = render_escape_sharded(scene, mesh)
 
-On TPU pods the coordinator address / process ids come from the runtime
-environment and ``initialize()`` needs no arguments; elsewhere pass them
-explicitly.  Single-process runs are a no-op — every entry point in this
+Where the cluster runtime provides the coordinator address / process ids,
+``initialize()`` needs no arguments; elsewhere pass them explicitly
+(``coordinator_address``, ``num_processes``, ``process_id``).  Single-process runs are a no-op — every entry point in this
 package works unchanged without calling this.
 """
 
@@ -60,7 +60,7 @@ def initialize(coordinator_address: Optional[str] = None,
                initialization_timeout: Optional[int] = None) -> None:
     """Join the multi-host cluster (idempotent; no-op if already joined).
 
-    All arguments optional: on TPU pods the runtime supplies them.  Must be
+    All arguments optional where the cluster runtime supplies them.  Must be
     called before any other JAX API touches devices.
 
     Failure semantics (r1 swallowed everything): with EXPLICIT coordinator

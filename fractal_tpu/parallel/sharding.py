@@ -1,6 +1,6 @@
-"""Multi-chip rendering: shard_map over a device mesh.
+"""Multi-device rendering: shard_map over a 1-D device mesh.
 
-TPU-native equivalent of the reference's two parallel strategies
+Data-parallel equivalents of the reference's two parallel strategies
 (SURVEY.md §2 C7/C9):
 
 * **Escape-time spatial DP** — the reference fans image *rows* out over
@@ -18,11 +18,12 @@ TPU-native equivalent of the reference's two parallel strategies
   iterations/N each and pairwise-reduces with saturating adds
   (src/lib.rs:271-319).  Its reduce is literally an all-reduce: here each
   device walks its own seeded replica set and a single ``jax.lax.psum``
-  over the mesh combines hit-count grids over ICI.
+  over the mesh combines hit-count grids.
 
-Works identically on a real TPU slice and on the CPU backend with
-``--xla_force_host_platform_device_count=N`` (how tests and the driver's
-multi-chip dry-run exercise it).
+The mesh follows the algorithm alone (every device reaches every other at
+the same rate), and works identically on several GPUs and on the CPU
+backend with ``--xla_force_host_platform_device_count=N`` (how the tests
+exercise it).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from jax import shard_map
 
 from fractal_tpu.config import Scene
 from fractal_tpu.models.rules import eff_power
-from fractal_tpu.ops import coloring
+from fractal_tpu.ops import coloring, route
 from fractal_tpu.ops.escape_pallas import iterate_params, scene_params
 
 AXIS = "rows"
@@ -77,12 +78,14 @@ def _pad_rows(h: int, n: int) -> int:
 
 
 def _render_escape_sharded_jit(scene: Scene, params, precision: str,
-                               use_pallas: bool, mesh: Mesh):
+                               impl: str, mesh: Mesh):
     """The whole image IS the h-row band at offset 0 (scene_params'
     identity (1, 0) row map): one code path for stills and bands."""
-    return _render_band_sharded_jit(scene, params, precision, use_pallas,
-                                    mesh,
+    return _render_band_sharded_jit(scene, params, precision, impl, mesh,
                                     rows=scene.height * scene.supersample)
+
+
+SHARDED_PRECISIONS = ("f32", "f64", "ds32")
 
 
 def render_escape_sharded(scene: Scene, mesh: Optional[Mesh] = None,
@@ -91,42 +94,38 @@ def render_escape_sharded(scene: Scene, mesh: Optional[Mesh] = None,
     """Render an escape-time scene across a device mesh.  Returns the
     (height, width, 3) uint8 image (replicated on the host).
 
-    ``backend`` follows the single-device contract (render.py::render_u8):
-    "auto" picks the Pallas kernels off-CPU and the jnp twins on CPU;
-    "pallas"/"jnp" force one side — the CLI's --backend reaches meshes too."""
-    from fractal_tpu.render import resolve_precision
+    Every device runs the params program of its stripe (``iterate_params``:
+    the escape-time kernel where it compiles, the twin elsewhere); the
+    gathered image equals the single-device params-program render
+    bit-for-bit.  ``backend`` follows render.py::escape_impl — the CLI's
+    --backend reaches meshes too."""
+    from fractal_tpu.render import escape_impl, params_dtype, resolve_precision
 
     mesh = mesh if mesh is not None else make_mesh()
     precision = precision or resolve_precision(scene)
-    use_pallas = (None if backend == "auto" else backend == "pallas")
     if precision in ("perturb", "p32"):
         # p32 keeps its single-device semantics on a mesh (fast tier:
-        # glitch detection and the exact fallback off — VERDICT r2 weak 2)
-        return render_perturb_sharded(scene, mesh, fast=precision == "p32",
-                                      use_pallas=use_pallas)
-    if precision not in ("f32", "ds32"):
-        # No silent downgrade (r1 coerced f64/dd64 to ds32, losing ~58 bits
-        # of a dd64 request without a word): the sharded kernels are the
-        # f32/ds32 Pallas pair; deeper requests must pick an explicit path.
+        # glitch detection and the exact fallback off)
+        return render_perturb_sharded(
+            scene, mesh, fast=precision == "p32",
+            use_pallas=False if backend == "jnp" else None)
+    if precision not in SHARDED_PRECISIONS:
+        # No silent downgrade: dd64 has no sharded program; deeper
+        # requests must pick an explicit path.
         raise ValueError(
-            f"sharded rendering supports f32/ds32/perturb, not "
-            f"{precision!r}; use precision='ds32' (f64-grade on TPU) or "
-            f"'perturb' for deeper zooms")
-    if use_pallas is None:
-        use_pallas = True
-    # Forced "pallas" on a CPU backend demotes to the bit-equal jnp twin,
-    # mirroring the single-device contract (render.py::_render_escape —
-    # interpret=True IS the twin, there is no Mosaic lowering on CPU).
-    use_pallas = use_pallas and jax.default_backend() not in ("cpu",)
-    params = scene_params(scene)
-    return _render_escape_sharded_jit(scene, params, precision, use_pallas, mesh)
+            f"sharded rendering supports f32/f64/ds32/perturb, not "
+            f"{precision!r}; use precision='f64' or 'perturb' for deeper "
+            f"zooms")
+    params = scene_params(scene, dtype=params_dtype(precision))
+    return _render_escape_sharded_jit(scene, params, precision,
+                                      escape_impl(precision, backend), mesh)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("precision", "use_pallas", "mesh", "rows")
+    jax.jit, static_argnames=("precision", "impl", "mesh", "rows")
 )
 def _render_band_sharded_jit(scene: Scene, params, precision: str,
-                             use_pallas: bool, mesh: Mesh, rows: int):
+                             impl: str, mesh: Mesh, rows: int):
     """One horizontal band of the supersampled grid, its rows interleaved
     across the mesh: device d owns global rows {start + r·n + d} — the
     band's global start (params[15], set by the caller exactly like the
@@ -140,8 +139,8 @@ def _render_band_sharded_jit(scene: Scene, params, precision: str,
     rows_local = rp // n
 
     def local_stripe(params):
-        d = jax.lax.axis_index(AXIS).astype(jnp.float32)
-        p_local = (params.at[14].set(jnp.float32(n))
+        d = jax.lax.axis_index(AXIS).astype(params.dtype)
+        p_local = (params.at[14].set(n)
                    .at[15].set(params[15] + d))
         zr, zi, cnt = iterate_params(
             p_local,
@@ -151,7 +150,7 @@ def _render_band_sharded_jit(scene: Scene, params, precision: str,
             precision=precision,
             height=rows_local,
             width=w,
-            interpret=not use_pallas,
+            impl=impl,
             periodicity=not scene.inside,
         )
         img = coloring.color_escape_result(
@@ -188,15 +187,24 @@ def _render_band_sharded_jit(scene: Scene, params, precision: str,
 
 
 @functools.partial(jax.jit, static_argnames=("iterations", "h", "w",
-                                             "use_pallas", "mesh", "power",
+                                             "impl", "mesh", "power",
                                              "algo", "extreme",
-                                             "bla_offsets"))
+                                             "bla_offsets", "glitch",
+                                             "dist_only"))
 def _perturb_sharded_jit(orbit, P, ns, iterations: int, h: int, w: int,
-                         use_pallas: bool, mesh: Mesh, power: int = 2,
+                         impl: str, mesh: Mesh, power: int = 2,
                          algo: str = "mandelbrot", extreme: bool = False,
-                         bla_packed=None, bla_offsets=None):
+                         bla_packed=None, bla_offsets=None,
+                         glitch: bool = True, dist_only: bool = False):
+    """Row-interleaved δ-orbit stripes: the orbit table is replicated per
+    device; each device's stripe addresses global rows through the exact
+    integer row map P[6:8] and runs the δ-orbit kernel (``impl`` not
+    "xla") or the twin, so the gathered result is bit-identical to the
+    single-device render of the same implementation.  Returns
+    (zr, zi, cnt, gl), or (dist, cnt) for the kernel's ``dist_only`` form
+    (p32)."""
     from fractal_tpu.ops.perturb import (
-        PERT_CHUNK, PERT_CHUNK_CPU, perturb_whole_jnp,
+        _twin_chunk, perturb_kernel, perturb_whole_jnp,
     )
 
     n = mesh.shape[AXIS]
@@ -206,20 +214,24 @@ def _perturb_sharded_jit(orbit, P, ns, iterations: int, h: int, w: int,
     def local_stripe(orbit, P, ns, *bla):
         d = jax.lax.axis_index(AXIS).astype(jnp.float32)
         p_local = P.at[6].set(jnp.float32(n)).at[7].set(P[7] + d)
-        return perturb_whole_jnp(
+        if impl == route.XLA:
+            return perturb_whole_jnp(
+                orbit, p_local, ns[0], iterations=iterations,
+                height=rows_local, width=w, chunk=_twin_chunk(),
+                power=power, algo=algo, extreme=extreme,
+                bla_packed=bla[0] if bla else None, bla_offsets=bla_offsets)
+        return perturb_kernel(
             orbit, p_local, ns[0], iterations=iterations,
-            height=rows_local, width=w,
-            chunk=PERT_CHUNK if use_pallas else PERT_CHUNK_CPU,
-            power=power, algo=algo, extreme=extreme,
-            bla_packed=bla[0] if bla else None, bla_offsets=bla_offsets)
+            height=rows_local, width=w, glitch=glitch, dist_only=dist_only,
+            power=power, algo=algo, interpret=impl == route.INTERPRET)
 
     args = (orbit, P, ns)
     if bla_packed is not None:
         args = args + (bla_packed,)
-    zr, zi, cnt, gl = shard_map(
+    outs = shard_map(
         local_stripe, mesh=mesh,
         in_specs=(P_spec(),) * len(args),
-        out_specs=(P_spec(AXIS),) * 4,
+        out_specs=(P_spec(AXIS),) * (2 if dist_only else 4),
         check_vma=False,
     )(*args)
 
@@ -227,88 +239,7 @@ def _perturb_sharded_jit(orbit, P, ns, iterations: int, h: int, w: int,
         return (a.reshape(n, rows_local, w)
                 .transpose(1, 0, 2).reshape(hp, w)[:h])
 
-    return deint(zr), deint(zi), deint(cnt), deint(gl)
-
-
-@functools.partial(jax.jit, static_argnames=("iterations", "h", "w", "mesh",
-                                             "julia", "glitch", "interpret",
-                                             "power", "algo", "dist_only"))
-def _perturb_sharded_pallas_jit(planes, P, ns, iterations: int, h: int,
-                                w: int, mesh: Mesh, julia: bool,
-                                glitch: bool, interpret: bool,
-                                power: int = 2, algo: str = "mandelbrot",
-                                dist_only: bool = False):
-    """Row-interleaved δ-orbit stripes through the v2 Pallas kernel — the
-    170 G-iter/s planes kernel, not the XLA twin (VERDICT r2 weak 2).  The
-    lane-replicated orbit planes are replicated per device (~9 MB once per
-    orbit over ICI); each device's stripe addresses global rows through the
-    exact integer row map P[6:8], so the gathered result is bit-identical
-    to the single-device kernel at every tier.
-
-    ``dist_only`` (p32 fast tier): the stripes run the dist-only kernel
-    form (see ``_build_pert_kernel_v2``) and return (dist, cnt)."""
-    from fractal_tpu.ops.perturb import perturb_pallas_v2
-
-    n = mesh.shape[AXIS]
-    hp = _pad_rows(h, n)
-    rows_local = hp // n
-
-    def local_stripe(planes, P, ns):
-        d = jax.lax.axis_index(AXIS).astype(jnp.float32)
-        p_local = P.at[6].set(jnp.float32(n)).at[7].set(P[7] + d)
-        return perturb_pallas_v2(
-            planes, p_local, ns[0], iterations=iterations,
-            height=rows_local, width=w, julia=julia, glitch=glitch,
-            interpret=interpret, power=power, algo=algo,
-            dist_only=dist_only)
-
-    n_out = 2 if dist_only else 4
-    outs = shard_map(
-        local_stripe, mesh=mesh,
-        in_specs=(P_spec(), P_spec(), P_spec()),
-        out_specs=(P_spec(AXIS),) * n_out,
-        check_vma=False,
-    )(planes, P, ns)
-
-    def deint(a):
-        return (a.reshape(n, rows_local, w)
-                .transpose(1, 0, 2).reshape(hp, w)[:h])
-
     return tuple(deint(a) for a in outs)
-
-
-@functools.partial(jax.jit, static_argnames=("iterations", "h", "w", "mesh",
-                                             "julia", "glitch", "interpret"))
-def _perturb_sharded_fe_jit(planes, P, ns, iterations: int, h: int,
-                            w: int, mesh: Mesh, julia: bool,
-                            glitch: bool, interpret: bool):
-    """Extreme-depth (floatexp) variant of the sharded planes kernel."""
-    from fractal_tpu.ops.perturb import perturb_pallas_fe
-
-    n = mesh.shape[AXIS]
-    hp = _pad_rows(h, n)
-    rows_local = hp // n
-
-    def local_stripe(planes, P, ns):
-        d = jax.lax.axis_index(AXIS).astype(jnp.float32)
-        p_local = P.at[6].set(jnp.float32(n)).at[7].set(P[7] + d)
-        return perturb_pallas_fe(
-            planes, p_local, ns[0], iterations=iterations,
-            height=rows_local, width=w, julia=julia, glitch=glitch,
-            interpret=interpret)
-
-    zr, zi, cnt, gl = shard_map(
-        local_stripe, mesh=mesh,
-        in_specs=(P_spec(), P_spec(), P_spec()),
-        out_specs=(P_spec(AXIS),) * 4,
-        check_vma=False,
-    )(planes, P, ns)
-
-    def deint(a):
-        return (a.reshape(n, rows_local, w)
-                .transpose(1, 0, 2).reshape(hp, w)[:h])
-
-    return deint(zr), deint(zi), deint(cnt), deint(gl)
 
 
 def P_spec(*axes):
@@ -327,9 +258,9 @@ def render_perturb_sharded(scene: Scene, mesh: Optional[Mesh] = None,
 
     ``fast=True`` is the p32 tier with IDENTICAL semantics to the
     single-device fast path (glitch detection and the exact fallback are
-    skipped — r2 ran sharded p32 through the exact pipeline, VERDICT weak
-    2).  ``use_pallas`` overrides the backend choice (tests force the
-    planes kernel through the Pallas interpreter on CPU meshes)."""
+    skipped).  ``use_pallas`` overrides the platform's choice
+    (ops/route.py: tests force the δ-orbit kernel through the Pallas
+    interpreter on CPU meshes)."""
     return _render_perturb_sharded_impl(scene, mesh, fast, use_pallas)
 
 
@@ -350,93 +281,48 @@ def _render_perturb_sharded_impl(scene: Scene, mesh, fast, use_pallas,
                                  start_row: int = 0,
                                  rows: Optional[int] = None):
     from fractal_tpu.ops.perturb import (
-        RENDER_STATS, _apply_fallback, _is_extreme, _perturb_setup,
-        _planes_for,
+        RENDER_STATS, _apply_fallback, _color_dist_jit, _color_jit,
+        _is_extreme, _perturb_setup,
     )
-    from fractal_tpu.render import _color_and_downsample
 
     mesh = mesh if mesh is not None else make_mesh()
-    h, w, on_accel, ref_px, orbit, P, _, dev = _perturb_setup(scene, fast)
+    h, w, impl, ref_px, orbit, P, _, dev = _perturb_setup(
+        scene, fast, force_kernel=use_pallas)
+    packed, bla_packed, bla_offsets = dev
     band = rows is not None
     h_out = rows if band else h
     if band:
         P = P.at[7].set(jnp.float32(start_row))
     ns = jnp.asarray([orbit.n_steps], jnp.int32)
-    forced = use_pallas  # caller's intent: None = auto, True/False = forced
-    use_pallas = on_accel if use_pallas is None else use_pallas
     # Same depth observability as the single-device path (__main__ --profile
     # and the viewer status line read these after every render)
     RENDER_STATS.update(
         n_glitch=None if fast else 0, n_residual=0,
         tier=("p32" if fast else
               "floatexp" if _is_extreme(scene) else "perturb"),
-        route="")
-    # Extreme + a useful extended-exponent BLA table: dev carries
-    # (packed, bla_packed, bla_offsets) — the BLA twin with macro-skips
-    # beats the plain fe kernel (measured 43.3 vs 294.7 ms single-device,
-    # PERF.md), exactly mirroring render_perturb's single-device routing.
-    # (_perturb_setup never puts extreme planes on-device — on_accel is
-    # False here — so dev is always the (packed, bla_packed, bla_offsets)
-    # host triple; a usable BLA table routes to the fe-BLA twin below.)
-    fe_accel = (_is_extreme(scene)
-                and (forced is True
-                     or (forced is None
-                         and jax.default_backend() not in ("cpu",)))
-                and dev[1] is None)
-    if fe_accel:
-        # extreme depth: the floatexp Pallas kernel shards the same way
-        # (planes replicated, global rows via the integer row map)
-        planes = _planes_for(scene, orbit, ref_px, w, h, fast)
-        RENDER_STATS["route"] = "sharded-fe-kernel"
-        zr, zi, cnt, gl = _perturb_sharded_fe_jit(
-            planes, P, ns, scene.iterations, h_out, w, mesh,
-            julia=scene.algo == "julia", glitch=not fast,
-            interpret=jax.default_backend() in ("cpu",),
-        )
-    elif use_pallas and not _is_extreme(scene):
-        planes = (dev if on_accel
-                  else _planes_for(scene, orbit, ref_px, w, h, fast))
-        RENDER_STATS["route"] = "sharded-v2-kernel"
-        if fast:
-            # p32: the dist-only kernel form (no zfr/zfi selects/outputs;
-            # coloring consumes |z|² alone) — same values, fewer ops/step
-            from fractal_tpu.render import _color_and_downsample_dist
-
-            dist, cnt = _perturb_sharded_pallas_jit(
-                planes, P, ns, scene.iterations, h_out, w, mesh,
-                julia=scene.algo == "julia", glitch=False,
-                interpret=jax.default_backend() in ("cpu",),
-                power=eff_power(scene.algo, scene.power),
-                algo=scene.algo, dist_only=True,
-            )
-            return _color_and_downsample_dist(scene, dist, cnt)
-        zr, zi, cnt, gl = _perturb_sharded_pallas_jit(
-            planes, P, ns, scene.iterations, h_out, w, mesh,
-            julia=scene.algo == "julia", glitch=not fast,
-            interpret=jax.default_backend() in ("cpu",),
-            power=eff_power(scene.algo, scene.power),
-            algo=scene.algo,
-        )
-    else:
-        packed = dev[0] if not on_accel else jnp.asarray(orbit.packed)
-        bla_packed = dev[1] if not on_accel else None
-        bla_offsets = dev[2] if not on_accel else None
-        RENDER_STATS["route"] = "sharded-xla-twin" + (
-            "-fe" if _is_extreme(scene) else "") + (
-            "-bla" if bla_packed is not None else "")
-        zr, zi, cnt, gl = _perturb_sharded_jit(
-            packed, P, ns, scene.iterations, h_out, w,
-            jax.default_backend() not in ("cpu",), mesh,
-            power=eff_power(scene.algo, scene.power),
-            algo=scene.algo, extreme=_is_extreme(scene),
-            bla_packed=bla_packed, bla_offsets=bla_offsets,
-        )
+        route=("sharded-kernel" if impl != route.XLA else
+               "sharded-xla-twin" + ("-fe" if _is_extreme(scene) else "")
+               + ("-bla" if bla_packed is not None else "")))
+    kernel_fast = fast and impl != route.XLA
+    outs = _perturb_sharded_jit(
+        packed, P, ns, scene.iterations, h_out, w, impl, mesh,
+        power=eff_power(scene.algo, scene.power), algo=scene.algo,
+        extreme=_is_extreme(scene), bla_packed=bla_packed,
+        bla_offsets=bla_offsets, glitch=not fast, dist_only=kernel_fast,
+    )
+    if kernel_fast:
+        # p32: the dist-only kernel form (no zfr/zfi selects/outputs;
+        # coloring consumes |z|² alone) — same values, fewer ops/step.
+        # Coloring runs as the same jitted program as single-device renders
+        # use: run op by op, GPU rounding differs on a few pixels.
+        return _color_dist_jit(scene, *outs)
+    zr, zi, cnt, gl = outs
     if not fast:
         zr, zi, cnt, n_gl = _apply_fallback(
             scene, zr, zi, cnt, gl, w, h_out,
             row0=start_row, full_height=h)
         RENDER_STATS["n_glitch"] = int(n_gl)
-    return _color_and_downsample(scene, zr, zi, cnt)
+    return _color_jit(scene, zr, zi, cnt)
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +419,7 @@ def render_fern_sharded(scene: Scene, mesh: Optional[Mesh] = None,
                         walkers: int = None, compat_replicas: bool = False,
                         exact: bool = True):
     """Fern across a device mesh, one psum combine (the reference's
-    combine_images all-reduce, src/lib.rs:303-318, as a single ICI
+    combine_images all-reduce, src/lib.rs:303-318, as a single
     collective).  Three modes:
 
     * ``exact`` (default): walkers of the single-device run are sliced

@@ -1,10 +1,10 @@
 """Render driver — the L2 orchestration layer (reference ``get_image``,
-src/lib.rs:253-321, re-designed TPU-first).
+src/lib.rs:253-321, re-designed for an accelerator).
 
 Where the reference fans rows out over rayon threads, here the whole image is
 one jitted XLA program (or one Pallas kernel): the "thread fan-out" is the
-VPU's 8×128 lanes plus, for multi-chip runs, shard_map tiling over the device
-mesh (fractal_tpu.parallel).
+kernel's grid of pixel blocks plus, for multi-device runs, shard_map tiling
+over the device mesh (fractal_tpu.parallel).
 
 Pipeline: viewport transform → escape iteration → coloring epilogue →
 (optional) supersample downsample.  The fern goes through the chaos-game
@@ -13,7 +13,7 @@ path in models/fern.py.
 Precision policy ("auto"): picks the cheapest representation that still
 resolves one pixel, by pixel spacing 1/(height·scale):
   * f32     spacing > ~2e-5   (f32 has 24-bit mantissa; |c| ~ O(1))
-  * f64     down to ~1e-13    (emulated on TPU but correct)
+  * f64     down to ~1e-13    (the reference's own semantics)
   * perturb below (mandelbrot/julia): f32 delta orbits against a
     high-precision reference orbit — the deep-zoom decomposition the
     reference's GPU branch was missing (reference README.md:20-22).
@@ -29,15 +29,15 @@ import numpy as np
 
 from fractal_tpu.config import Scene
 from fractal_tpu.models.rules import get_rule, perturb_supported
-from fractal_tpu.ops import coloring, viewport
+from fractal_tpu.ops import coloring, route, viewport
 from fractal_tpu.ops.escape_jnp import iterate
 
 F32_SPACING_LIMIT = 2e-5   # conservative: ~2^7 ulps of headroom at |c|~1
 F64_SPACING_LIMIT = 1e-13
-# ds32 (~2^-48 relative) resolves pixels down to ~1e-13 spacing; past that
-# only perturbation works on TPU (f32 δ-orbits hold to ~1e-38 absolute).
-# Within ds32's range we stay on ds32: bit-stable quality matching the
-# reference's f64; perturbation is the beyond-reference extension.
+# f64 resolves pixels down to ~1e-13 spacing; past that only perturbation
+# works (f32 δ-orbits hold to ~1e-38 absolute).  Within f64's range we stay
+# on f64, the reference's own semantics; perturbation is the
+# beyond-reference extension.
 PERTURB_SPACING_LIMIT = 1e-13
 
 
@@ -47,11 +47,10 @@ def _ensure_x64():
 
 
 def resolve_precision(scene: Scene) -> str:
-    """Resolve 'auto' to a concrete precision for this scene (static).
-
-    Platform-aware: TPUs have no hardware f64, so deep views pick the
-    double-single Pallas path (ds32, ~2⁻⁴⁸) or perturbation; on CPU the
-    mid-depth default stays f64 for bit-parity with the reference.
+    """Resolve 'auto' to a concrete precision for this scene (static):
+    f32 for shallow views, perturbation past f64's reach, f64 between —
+    the reference's own semantics, in hardware on the CPU and the GPU.
+    ds32 and dd64 are explicit tiers only.
     """
     if scene.precision != "auto":
         if scene.precision in ("f64", "dd64"):
@@ -63,8 +62,6 @@ def resolve_precision(scene: Scene) -> str:
     if (perturb_supported(scene.algo, scene.power)
             and spacing <= PERTURB_SPACING_LIMIT):
         return "perturb"
-    if jax.default_backend() != "cpu":
-        return "ds32"
     _ensure_x64()
     return "f64"
 
@@ -157,8 +154,11 @@ def _render_band_jnp_jit(scene: Scene, precision: str, start,
     return _escape_jnp_band(scene, precision, start, rows)
 
 
-@functools.partial(jax.jit, static_argnames=("precision", "interpret"), donate_argnums=())
-def _render_escape_pallas_jit(scene: Scene, params, precision: str, interpret: bool):
+@functools.partial(jax.jit, static_argnames=("precision", "impl"))
+def _render_escape_pallas_jit(scene: Scene, params, precision: str,
+                              impl: str):
+    """The params program: ``iterate_params`` (the escape-time kernel or
+    its twin, per ``impl``) → coloring."""
     from fractal_tpu.ops.escape_pallas import iterate_params
 
     ss = scene.supersample
@@ -171,7 +171,7 @@ def _render_escape_pallas_jit(scene: Scene, params, precision: str, interpret: b
         height=h,
         width=w,
         precision=precision,
-        interpret=interpret,
+        impl=impl,
         # Interior cycle detection is exact only when interior pixels render
         # black (no dependence on the final z phase) — see _iterate_tile.
         periodicity=not scene.inside,
@@ -180,8 +180,8 @@ def _render_escape_pallas_jit(scene: Scene, params, precision: str, interpret: b
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("precision", "interpret", "rows"))
-def _render_band_jit(scene: Scene, params, precision: str, interpret: bool,
+                   static_argnames=("precision", "impl", "rows"))
+def _render_band_jit(scene: Scene, params, precision: str, impl: str,
                      rows: int):
     """One horizontal band of the supersampled grid (see fractal_tpu.tiled):
     `params[15]` carries the global start row, so this is the same program
@@ -197,10 +197,30 @@ def _render_band_jit(scene: Scene, params, precision: str, interpret: bool,
         height=rows,
         width=w,
         precision=precision,
-        interpret=interpret,
+        impl=impl,
         periodicity=not scene.inside,
     )
     return _color_and_downsample(scene, zr, zi, cnt)
+
+
+def params_dtype(precision: str):
+    """Word type of the ``scene_params`` block a precision tier reads."""
+    if precision in ("f64", "dd64"):
+        _ensure_x64()
+        return jnp.float64
+    return jnp.float32
+
+
+def escape_impl(precision: str, backend: str = "auto") -> str:
+    """Which program renders an escape-time tier (ops/route.py names).
+
+    "auto" runs the escape-time kernel where it compiles (f32, f64 and
+    ds32 on the GPU) and the XLA programs elsewhere.  "pallas" asks for
+    the kernel — on a platform without it that is the twin, the same
+    arithmetic.  "jnp" asks for the XLA programs."""
+    if backend == "jnp" or precision == "dd64":
+        return route.XLA
+    return route.kernel_impl()
 
 
 def _render_escape(scene: Scene, backend: str = "auto"):
@@ -217,28 +237,19 @@ def _render_escape(scene: Scene, backend: str = "auto"):
         # reference orbit, no glitch fallback.  Interior/escaped
         # classification >99.9 % correct at mid-depth; boundary counts carry
         # f32 trajectory noise.  Never auto-selected: "auto" keeps the
-        # f64-grade ds32/perturb ladder (no silent precision change).
+        # f64/perturb ladder (no silent precision change).
         return render_perturb(scene, fast=precision == "p32")
-    if backend == "auto":
-        on_tpu = jax.default_backend() not in ("cpu",)
-        backend = "pallas" if (on_tpu and precision in ("f32", "ds32")) else "jnp"
-    if precision == "dd64":
-        # double-double on f64 words (~2^-106): CPU-only (no f64 vectors on
-        # TPU), runs the whole-image jnp twin of the double-word scaffold.
-        from fractal_tpu.ops.escape_pallas import scene_params
+    impl = escape_impl(precision, backend)
+    if (impl == route.XLA and precision in ("f32", "f64")
+            and backend != "pallas"):
+        # the whole-image jnp program (reference viewport expressions)
+        return _render_escape_jit(scene, precision)
+    from fractal_tpu.ops.escape_pallas import scene_params
 
-        _ensure_x64()
-        params = scene_params(scene, dtype=jnp.float64)
-        return _render_escape_pallas_jit(scene, params, "dd64", True)
-    if backend == "pallas" or precision == "ds32":
-        from fractal_tpu.ops.escape_pallas import scene_params
-
-        # Exact host-side viewport constants — needs concrete pos/scale, so
-        # this runs outside jit; everything traced happens in the jit above.
-        params = scene_params(scene)
-        interpret = jax.default_backend() == "cpu"
-        return _render_escape_pallas_jit(scene, params, precision, interpret)
-    return _render_escape_jit(scene, precision)
+    # Exact host-side viewport constants — needs concrete pos/scale, so
+    # this runs outside jit; everything traced happens in the jit above.
+    params = scene_params(scene, dtype=params_dtype(precision))
+    return _render_escape_pallas_jit(scene, params, precision, impl)
 
 
 # ---------------------------------------------------------------------------

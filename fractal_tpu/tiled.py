@@ -3,14 +3,15 @@
 The reference renders one-shot and has no resume (SURVEY.md §5); for
 multi-minute posters a crash costs everything.  Here the image is rendered
 in horizontal bands, each addressed through an exact global-row map —
-the params program's integer (stride, offset) row map for f32/ds32/dd64,
-the jnp program's elementwise ``pixel_grid(row0=...)`` band for f64 —
-so the banded result is bit-identical to the one-shot render at every
-tier, with one caveat: f32 on CPU, where the one-shot render rides the
-jnp program and XLA:CPU's shape-dependent fusion rounding can flip
-~0.05 % of chaotic boundary escape tests between differently-shaped
-programs (see ``_band_u8``; on TPU f32 both routes run the same params
-program and match exactly).  Completed bands are written to a checkpoint
+the params program's integer (stride, offset) row map wherever the
+one-shot render runs the params program, the jnp program's elementwise
+``pixel_grid(row0=...)`` band where it runs the jnp program (f64 off the
+GPU) — so the banded result is bit-identical to the one-shot render at
+every tier, with one caveat: f32 off the GPU, where the one-shot render
+rides the jnp program and XLA:CPU's shape-dependent fusion rounding can
+flip ~0.05 % of chaotic boundary escape tests between differently-shaped
+programs (see ``_band_u8``; on the GPU both run the kernel and match
+exactly).  Completed bands are written to a checkpoint
 directory as they finish; a rerun skips them and assembles the rest.
 
 Escape-time scenes only (the fern's chaos game is a global scatter — no
@@ -28,39 +29,36 @@ import os
 from typing import Callable, Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 from fractal_tpu.config import Scene
 
 
 def _band_u8(scene: Scene, start_row: int, rows: int, precision: str,
-             use_pallas: bool):
+             impl: str):
     """Render global rows [start_row, start_row+rows) of the supersampled
     grid, colored and downsampled — shapes static per band size.
 
     Program choice mirrors the one-shot render (render.py::_render_escape):
-    f64 rides the jnp program (bit-identical bands — the r4 fix: the
-    params program computed f64 scenes at f32); ds32 rides the params
-    program on every backend and dd64 its interpret form, both
-    bit-identical.  f32 keeps the params program everywhere: on CPU the
-    one-shot f32 render rides the jnp program instead, and XLA:CPU's
-    whole-program fusion rounds the escape loop shape-dependently (FMA
-    contraction), so band programs of any family can flip ~0.05 % of
+    f64 off the GPU rides the jnp program (bit-identical bands); every
+    other tier rides the params program (the kernel on the GPU, the twin
+    elsewhere), bit-identical too.  f32 off the GPU keeps the params
+    program: the one-shot f32 render rides the jnp program instead, and
+    XLA:CPU's whole-program fusion rounds the escape loop shape-dependently
+    (FMA contraction), so band programs of any family can flip ~0.05 % of
     chaotic boundary escape tests vs the one-shot shape — measured, and
-    not fixable short of pinning every mul+add in the hot rules.  On TPU
-    one-shot f32 rides the same params program as the bands and matches
-    bit-exactly."""
+    not fixable short of pinning every mul+add in the hot rules."""
+    from fractal_tpu.ops import route
     from fractal_tpu.ops.escape_pallas import scene_params
-    from fractal_tpu.render import _render_band_jit, _render_band_jnp_jit
+    from fractal_tpu.render import (
+        _render_band_jit, _render_band_jnp_jit, params_dtype,
+    )
 
-    if precision == "f64":
+    if precision == "f64" and impl == route.XLA:
         return _render_band_jnp_jit(scene, precision, start_row, rows)
-    dtype = jnp.float64 if precision == "dd64" else jnp.float32
-    params = scene_params(scene, dtype=dtype)
+    params = scene_params(scene, dtype=params_dtype(precision))
     params = params.at[15].set(float(start_row))
-    interpret = (not use_pallas) or precision == "dd64"
-    return _render_band_jit(scene, params, precision, interpret, rows)
+    return _render_band_jit(scene, params, precision, impl, rows)
 
 
 def render_tiled(scene: Scene, band_rows: int = 512,
@@ -81,8 +79,8 @@ def render_tiled(scene: Scene, band_rows: int = 512,
     perturbation depth (shared orbit replicated per device, glitches
     resolved in global coordinates).  They also match the single-device
     banded render wherever the mesh and single-device one-shot programs
-    agree (everywhere on TPU; on CPU the f32 mesh rides the params
-    program while single-device f32 rides the jnp program, mirroring
+    agree (everywhere on the GPU; on CPU the f32/f64 mesh rides the params
+    program while single-device f32/f64 rides the jnp program, mirroring
     their one-shot counterparts — same split as unbanded renders).
     """
     from fractal_tpu.render import resolve_precision
@@ -112,7 +110,9 @@ def render_tiled(scene: Scene, band_rows: int = 512,
     h = scene.height * ss
     band_rows = max(ss, (band_rows // ss) * ss)  # keep downsample aligned
     n_bands = -(-h // band_rows)
-    use_pallas = jax.default_backend() not in ("cpu",)
+    from fractal_tpu.render import escape_impl
+
+    impl = escape_impl(precision)
 
     if perturb and mesh is not None:
         from fractal_tpu.parallel.sharding import render_perturb_band_sharded
@@ -129,27 +129,27 @@ def render_tiled(scene: Scene, band_rows: int = 512,
                                        fast=precision == "p32")
     elif mesh is not None:
         from fractal_tpu.ops.escape_pallas import scene_params
-        from fractal_tpu.parallel.sharding import _render_band_sharded_jit
+        from fractal_tpu.parallel.sharding import (
+            SHARDED_PRECISIONS, _render_band_sharded_jit,
+        )
+        from fractal_tpu.render import params_dtype
 
-        if precision not in ("f32", "ds32"):
+        if precision not in SHARDED_PRECISIONS:
             # Same no-silent-downgrade contract as the unbanded mesh path
-            # (render_escape_sharded): the sharded kernels are the f32/ds32
-            # Pallas pair — banding must not quietly compute f64/dd64 at f32.
+            # (render_escape_sharded): dd64 has no sharded program.
             raise ValueError(
-                f"sharded rendering supports f32/ds32/perturb, not "
-                f"{precision!r}; use precision='ds32' (f64-grade on TPU) "
-                f"or 'perturb' for deeper zooms")
+                f"sharded rendering supports f32/f64/ds32/perturb, not "
+                f"{precision!r}; use precision='f64' or 'perturb' for "
+                f"deeper zooms")
 
         def band_u8(start, rows):
-            # the guard above pins precision to f32/ds32 — the f32 params
-            # block, exactly like the unbanded mesh path
-            params = scene_params(scene)
+            params = scene_params(scene, dtype=params_dtype(precision))
             params = params.at[15].set(float(start))
             return _render_band_sharded_jit(scene, params, precision,
-                                            use_pallas, mesh, rows)
+                                            impl, mesh, rows)
     else:
         def band_u8(start, rows):
-            return _band_u8(scene, start, rows, precision, use_pallas)
+            return _band_u8(scene, start, rows, precision, impl)
 
     scene_key = repr(sorted(
         (k, str(v)) for k, v in scene.__dict__.items()

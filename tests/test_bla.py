@@ -134,12 +134,10 @@ MINIBROT_1E40_Y = "2800802815534912266892993207924602754433524878247558060507849
 
 
 def test_fe_table_deep_levels_and_render_counts_preserved():
-    """Extreme-depth BLA (VERDICT r2 next 4): at a contracting (minibrot)
+    """Extreme-depth BLA: at a contracting (minibrot)
     1e40x view the extended-exponent table must carry valid DEEP merge
     levels, and the BLA-accelerated fe render must preserve counts and
-    glitch flags bit-exactly vs the plain fe loop.  (Measured on v5e at
-    512x384/4000: plain twin 294.7 ms, fe kernel 122.8 ms, BLA twin
-    43.3 ms — identical counts.)"""
+    glitch flags bit-exactly vs the plain fe loop."""
     from fractal_tpu.ops import perturb as pt
     from fractal_tpu.ops.bla import build_table_fe
 

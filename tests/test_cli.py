@@ -173,8 +173,7 @@ def test_perturb_rejects_unsupported_rule():
 
 
 def test_devices_flag_sharded_still_bit_identical(tmp_path):
-    """--devices N routes a still render through the mesh (SURVEY §2 C7
-    TPU plan) and must be bit-identical to the single-device render; fern
+    """--devices N routes a still render through the mesh (SURVEY §2 C7) and must be bit-identical to the single-device render; fern
     routes the psum ensemble (C9)."""
     import numpy as np
     from PIL import Image

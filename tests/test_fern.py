@@ -50,7 +50,7 @@ def test_darkening_curve_zero_channel_and_cycle():
 
 
 def test_darkening_alternating_swap_matches_reference_recurrence():
-    """ADVICE r1: the reference's subtract_pixel feeds its result back
+    """the reference's subtract_pixel feeds its result back
     through the swapped RGB::new, so g/b alternate across hits — the LUT
     must reproduce that, not straight per-channel powers."""
     bg, prim, w = (240, 230, 220), (4, 3, 100), 0.01

@@ -1,7 +1,7 @@
 """Real multi-host (DCN) test: two OS processes, one Gloo coordinator.
 
 r1 shipped `parallel/multihost.py` as a shim whose only exercised behavior
-was the single-process no-op (VERDICT r1, weak #7).  This test launches an
+was the single-process no-op.  This test launches an
 actual 2-process cluster on the CPU backend (2 virtual devices per process
 → a 4-device global mesh), so the fern ``lax.psum`` and the escape-stripe
 ``shard_map`` genuinely run collectives across the process boundary, and
@@ -9,7 +9,7 @@ asserts the results are bit-identical to the same renders in a single
 process — the package's sharding contract extended over DCN.
 
 The reference is single-process shared-memory (SURVEY.md §5 "distributed
-backend"); this is the TPU-native multi-host story it lacks.
+backend"); this is the multi-host story it lacks.
 """
 
 import hashlib

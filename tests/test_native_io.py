@@ -56,7 +56,7 @@ def test_encode_image_prefers_native(tmp_path):
 
 
 def test_avif_decode_roundtrip_near_lossless(tmp_path):
-    """VERDICT r1 item 8: AVIF with the reference's settings (quality 100,
+    """AVIF with the reference's settings (quality 100,
     speed 8, YCbCr 4:4:4 full-range — src/lib.rs:326-333) must decode back
     within YCbCr round-trip error of the source array."""
     import numpy as np

@@ -79,7 +79,8 @@ def test_walk_bit_identical_to_mpmath(algo, power, digits):
             c = mp.mpc(mp.mpf(-0.8), mp.mpf(0.156)) if algo == "julia" \
                 else z0
             ref_zs, ref_n = _py_walk(algo, power, z0, c, 400, 4.0)
-            got = native_walk.walk(algo, power, prec, z0, c, 400, 4.0)
+            got = native_walk.walk(algo, power, prec, z0._mpc_, c._mpc_,
+                                   400, 4.0)
             assert got is not None
             zs, n = got
             assert n == ref_n
@@ -97,7 +98,8 @@ def test_walk_long_interior_orbit_bit_identical():
                     mp.mpf("0.7449") + mp.mpf(3) / mp.mpf(10) ** 72)
         ref_zs, ref_n = _py_walk("mandelbrot", 2, z0, z0, 5000, 4.0)
         assert ref_n == 5000  # stayed interior
-        zs, n = native_walk.walk("mandelbrot", 2, prec, z0, z0, 5000, 4.0)
+        zs, n = native_walk.walk("mandelbrot", 2, prec, z0._mpc_,
+                                 z0._mpc_, 5000, 4.0)
         assert n == ref_n
         np.testing.assert_array_equal(ref_zs, zs)
 
@@ -111,7 +113,8 @@ def test_walk_real_axis_special_case():
             mp.mpf("-1.9999999999999999999999999999999999999999999"),
             mp.mpf(0))
         ref_zs, ref_n = _py_walk("mandelbrot", 2, z0, z0, 500, 4.0)
-        zs, n = native_walk.walk("mandelbrot", 2, prec, z0, z0, 500, 4.0)
+        zs, n = native_walk.walk("mandelbrot", 2, prec, z0._mpc_,
+                                 z0._mpc_, 500, 4.0)
         assert n == ref_n
         np.testing.assert_array_equal(ref_zs[: ref_n + 1], zs[: n + 1])
 
@@ -125,7 +128,8 @@ def test_walk_zpow_axis_exact_path():
         z0 = mp.mpc(mp.mpf("-1.2599210498948731647672106072782"),
                     mp.mpf(0))
         ref_zs, ref_n = _py_walk("multibrot", 3, z0, z0, 200, 4.0)
-        got = native_walk.walk("multibrot", 3, prec, z0, z0, 200, 4.0)
+        got = native_walk.walk("multibrot", 3, prec, z0._mpc_, z0._mpc_,
+                               200, 4.0)
         assert got is not None
         zs, n = got
         assert n == ref_n
@@ -134,13 +138,14 @@ def test_walk_zpow_axis_exact_path():
 
 def test_walk_zpow_axis_high_prec_falls_back():
     """Past bc*n >= 1000 mpf_pow_int switches to its directed-rounding
-    ladder (not replicated) — the walker must decline so the caller runs
-    the mpmath loop."""
+    ladder (not replicated) — the walker must decline (the caller then
+    stops with a clear error)."""
     with mp.workdps(150):  # ~500 bits * 3 >= 1000: ladder path
         prec = mp.mp.prec
         tail = mp.mpf(1) / mp.mpf(10) ** 140
         z0 = mp.mpc(mp.mpf("-1.5") + tail, mp.mpf(0))
-        assert native_walk.walk("multibrot", 3, prec, z0, z0, 100,
+        assert native_walk.walk("multibrot", 3, prec, z0._mpc_,
+                                z0._mpc_, 100,
                                 4.0) is None
 
 
@@ -155,18 +160,21 @@ def test_direct_bit_identical_to_mpmath():
             for _ in range(4):
                 z0 = _deep_point(rng, 45)
                 ref = _py_direct(algo, power, z0, z0, 300, 4.0)
-                got = native_walk.direct(algo, power, prec, z0, z0, 300,
+                got = native_walk.direct(algo, power, prec, z0._mpc_,
+                                         z0._mpc_, 300,
                                          4.0)
                 assert got is not None
                 assert got == ref
 
 
 def test_reference_orbit_uses_native_walker_bit_stable():
-    """End-to-end: reference_orbit's packed table at an mpmath-tier depth
-    is identical whether the native walker or the mpmath loop produced it
-    (monkeypatched off), so cached orbits and every downstream
-    bit-equality contract are unchanged."""
-    from fractal_tpu.config import Scene
+    """End-to-end: reference_orbit's packed table at a high-precision depth
+    (inputs built from exact Fractions, walked natively) is identical to
+    the table the mpmath loop produces from the same exact coordinates, so
+    cached orbits and every downstream bit-equality contract hold."""
+    from fractions import Fraction
+
+    from fractal_tpu.config import Scene, exact_pos
     from fractal_tpu.ops import perturb as pt
 
     sc = Scene(width=32, height=24, iterations=600,
@@ -174,22 +182,22 @@ def test_reference_orbit_uses_native_walker_bit_stable():
                scale=(1e15, 1e15))
     w, h = sc.width, sc.height
     ref_px = (w // 2, h // 2)
-
-    def fresh(monkey_off):
-        pt._ORBIT_CACHE.clear()
-        pt._C_ORBIT_CACHE.clear()
-        if monkey_off:
-            orig = native_walk.walk
-            native_walk.walk = lambda *a, **k: None
-            try:
-                return pt.reference_orbit(sc, ref_px, w, h)
-            finally:
-                native_walk.walk = orig
-        return pt.reference_orbit(sc, ref_px, w, h)
-
-    nat = fresh(False)
-    mpm = fresh(True)
-    assert nat.n_steps == mpm.n_steps
-    np.testing.assert_array_equal(nat.packed, mpm.packed)
     pt._ORBIT_CACHE.clear()
     pt._C_ORBIT_CACHE.clear()
+    nat = pt.reference_orbit(sc, ref_px, w, h)
+    pt._ORBIT_CACHE.clear()
+    pt._C_ORBIT_CACHE.clear()
+
+    (Ar, Cr), (Ai, Ci) = pt._affine_fractions(w, h, exact_pos(sc), sc.scale)
+    c0r, c0i = Ar * ref_px[0] + Cr, Ai * ref_px[1] + Ci
+    spacing = sc.pixel_spacing / sc.supersample
+    with mp.workdps(pt._walk_digits(spacing)):
+        z0 = mp.mpc(mp.mpf(c0r.numerator) / c0r.denominator,
+                    mp.mpf(c0i.numerator) / c0i.denominator)
+        zs, n = _py_walk("mandelbrot", 2, z0, z0, sc.iterations,
+                         float(sc.limit) ** 2)
+    assert nat.n_steps == n
+    z32 = zs[: n + 1].astype(np.float32)
+    np.testing.assert_array_equal(nat.packed[:n, 0:2], z32[:n])
+    np.testing.assert_array_equal(nat.packed[:n, 2:4], z32[1:n + 1])
+    assert isinstance(c0r, Fraction)

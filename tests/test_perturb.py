@@ -273,21 +273,32 @@ def test_deep_multiref_e2e_render(monkeypatch):
     assert diff.sum() == 0, f"{diff.sum()} off-needle pixels differ"
 
 
-def test_orbit_planes_final_row():
-    """Regression: the v2 kernel reads Z_{n_steps} from plane row n_steps,
-    which packed col 0/1 never fills (they hold Z_n for n < n_steps only);
-    orbit_planes must splice it in from the Z_{n+1} columns.  Without the
-    splice the final step sees Z=0 and (at views whose orbit ends near a
-    small |Z|) spuriously glitch-flags nearly every surviving pixel."""
+def test_orbit_table_final_row():
+    """Regression: the δ-orbit kernel's last step (n = n_steps−1) reads
+    Z_{n_steps} from columns 2:4 of orbit row n_steps−1 — the packed table
+    must carry the orbit's final value there (a zero would make the final
+    step spuriously glitch-flag nearly every surviving pixel), and the
+    kernel must agree with the twin on an orbit that escapes early."""
     scene = Scene(width=32, height=24, iterations=100,
                   pos=(-0.5, 0.0), scale=(0.4, 0.4))
-    orbit = pt.reference_orbit(scene, (16, 12), 32, 24)
-    zr2, zi2, gt = pt.orbit_planes(orbit)
+    ref = (16, 6)
+    orbit = pt.reference_orbit(scene, ref, 32, 24)
     n = orbit.n_steps
-    assert float(zr2[n, 0]) == 2.0 * float(orbit.packed[n - 1, 2])
-    assert float(zi2[n, 0]) == 2.0 * float(orbit.packed[n - 1, 3])
-    # lane-replication: every lane carries the same value
-    assert (np.asarray(zr2[n]) == np.asarray(zr2[n, 0])).all()
+    assert n < scene.iterations  # the reference escapes: a short table
+    z = complex(orbit.packed[n - 1, 0], orbit.packed[n - 1, 1])
+    c = complex(orbit.packed[0, 0], orbit.packed[0, 1])
+    want = z * z + c
+    assert abs(complex(orbit.packed[n - 1, 2], orbit.packed[n - 1, 3])
+               - want) <= 1e-5 * abs(want)
+    assert abs(want) > scene.limit  # Z_{n_steps} is the escaped value
+    P = pt._pert_params(scene, ref, 32, 24, orbit=orbit)
+    args = (jnp.asarray(orbit.packed), P, jnp.int32(n))
+    kw = dict(iterations=100, height=24, width=32)
+    twin = pt.perturb_whole_jnp(*args, chunk=16, **kw)
+    kern = pt.perturb_kernel(*args, interpret=True, chunk=16, **kw)
+    for name, a, b in zip(("zr", "zi", "cnt", "gl"), twin, kern):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=name)
 
 
 def test_multiref_device_fallback_matches_host():
@@ -1032,7 +1043,7 @@ def test_cross_budget_candidate_pack_no_crash():
     cands = pt._candidate_refs(sc2, w, h)
     if not cands:  # cache evicted by other tests: nothing to pack
         pytest.skip("no cached candidates survived")
-    packed = pt._refs_device_pack(sc2, cands, w, h, on_accel=False)
+    packed = pt._refs_device_pack(sc2, cands, w, h)
     rows = 300 + pt.ORBIT_PAD
     assert packed[0].shape[1:] == (rows, 8)
 
@@ -1110,7 +1121,7 @@ def test_multiref_residual_direct_resolve(monkeypatch):
 
 
 def test_multiref_residual_always_resolved_exactly(monkeypatch):
-    """VERDICT r4 #2: there is NO best-effort path anymore.  Even when the
+    """there is NO best-effort path anymore.  Even when the
     projected direct-resolve wall exceeds the warning threshold (forced to
     0 here), every residual pixel is finished exactly — the warning names
     the projection, n_residual is 0, and counts equal the exact twin's."""
@@ -1140,7 +1151,7 @@ def test_multiref_residual_always_resolved_exactly(monkeypatch):
     np.testing.assert_array_equal(cnt_d, cnt_t)
 
 
-# --- v2 Pallas kernel: non-quadratic recurrences (VERDICT r2 next 2) ------
+# --- the δ-orbit kernel (interpreter) against the XLA twin ----------------
 
 
 def _kernel_vs_twin(sc, chunk=16):
@@ -1152,19 +1163,18 @@ def _kernel_vs_twin(sc, chunk=16):
     twin = pt.perturb_whole_jnp(
         jnp.asarray(orbit.packed), P, ns, iterations=sc.iterations,
         height=h, width=w, chunk=chunk, power=pw, algo=sc.algo)
-    kern = pt.perturb_pallas_v2(
-        pt.orbit_planes(orbit), P, ns, iterations=sc.iterations,
-        height=h, width=w, julia=sc.algo == "julia", glitch=True,
-        interpret=True, chunk=chunk, power=pw, algo=sc.algo)
+    kern = pt.perturb_kernel(
+        jnp.asarray(orbit.packed), P, ns, iterations=sc.iterations,
+        height=h, width=w, glitch=True, interpret=True, chunk=chunk,
+        power=pw, algo=sc.algo)
     return [np.asarray(a) for a in twin], [np.asarray(a) for a in kern]
 
 
 def test_pallas_v2_kernel_matches_twin_multibrot_tricorn():
-    """The v2 planes kernel now carries every plain-f32 δ-recurrence
-    (VERDICT r2 weak 3).  For the binomial-Horner (multibrot) and conjugate
-    (tricorn) forms the kernel is bit-identical to the XLA twin — Z is
-    recovered exactly from the 2·Z planes and every expression matches the
-    twin's fl() order."""
+    """The δ-orbit kernel carries every plain-f32 δ-recurrence.  For the
+    binomial-Horner (multibrot) and conjugate (tricorn) forms the kernel
+    is bit-identical to the XLA twin — both evaluate ``_delta_step``'s
+    expressions in the same fl() order."""
     for sc in (
         Scene(algo="multibrot", power=3, width=48, height=36, iterations=250,
               pos=(0.44304637997136528, 0.55830853647684602),
@@ -1185,7 +1195,7 @@ def test_pallas_v2_kernel_matches_twin_multibrot_tricorn():
 
 def test_pallas_v2_kernel_burningship_bit_parity():
     """Burning ship holds the same full bit-parity contract as every other
-    algo (VERDICT r3 #5 closed).  XLA:CPU used to contract the diffabs
+    algo.  XLA:CPU used to contract the diffabs
     select tree's mul+add chains into FMAs differently at different unroll
     depths (twin chunk-4 vs chunk-16 disagreed on 24% of counts at a 1e14
     boundary view); every product feeding an add in the burning-ship branch
@@ -1211,10 +1221,10 @@ def test_pallas_v2_kernel_burningship_bit_parity():
 
 
 def test_pallas_v2_dist_only_matches_full_kernel():
-    """The p32 fast tier's dist-only kernel form (r4: zfr/zfi freeze
-    selects and outputs dropped — the coloring epilogue consumes |z|²
-    alone) must produce the same counts and the same colored image as the
-    full kernel + the zr/zi coloring path, for every δ-recurrence family."""
+    """The p32 fast tier's dist-only kernel form (zfr/zfi freeze selects
+    and outputs dropped — the coloring epilogue consumes |z|² alone) must
+    produce the same counts and the same colored image as the full kernel
+    + the zr/zi coloring path, for every δ-recurrence family."""
     from fractal_tpu.render import _color_and_downsample, \
         _color_and_downsample_dist
 
@@ -1235,16 +1245,14 @@ def test_pallas_v2_dist_only_matches_full_kernel():
         P = pt._pert_params(sc, ref, w, h, orbit=orbit)
         ns = jnp.int32(orbit.n_steps)
         pw = pt.eff_power(sc.algo, sc.power)
-        planes = pt.orbit_planes(orbit)
-        julia = sc.algo == "julia"
-        zr, zi, cnt, _gl = pt.perturb_pallas_v2(
-            planes, P, ns, iterations=sc.iterations, height=h, width=w,
-            julia=julia, glitch=False, interpret=True, power=pw,
-            algo=sc.algo)
-        d, cnt2 = pt.perturb_pallas_v2(
-            planes, P, ns, iterations=sc.iterations, height=h, width=w,
-            julia=julia, glitch=False, interpret=True, power=pw,
-            algo=sc.algo, dist_only=True)
+        packed = jnp.asarray(orbit.packed)
+        zr, zi, cnt, _gl = pt.perturb_kernel(
+            packed, P, ns, iterations=sc.iterations, height=h, width=w,
+            glitch=False, interpret=True, power=pw, algo=sc.algo)
+        d, cnt2 = pt.perturb_kernel(
+            packed, P, ns, iterations=sc.iterations, height=h, width=w,
+            glitch=False, interpret=True, power=pw, algo=sc.algo,
+            dist_only=True)
         np.testing.assert_array_equal(np.asarray(cnt), np.asarray(cnt2),
                                       err_msg=f"{sc.algo}:cnt")
         img_full = np.asarray(jax.jit(_color_and_downsample)(sc, zr, zi,
@@ -1254,17 +1262,16 @@ def test_pallas_v2_dist_only_matches_full_kernel():
         np.testing.assert_array_equal(img_full, img_dist,
                                       err_msg=f"{sc.algo}:img")
         # the fused fast-tier program lands on the same image
-        img_fast = np.asarray(pt._render_perturb_pallas_fast_jit(
-            sc, planes, P, jnp.asarray([orbit.n_steps], jnp.int32)[0],
-            height=h, width=w, julia=julia, power=pw, algo=sc.algo,
-            interpret=True))
+        img_fast = np.asarray(pt._render_perturb_kernel_fast_jit(
+            sc, packed, P, jnp.asarray([orbit.n_steps], jnp.int32)[0],
+            height=h, width=w, power=pw, algo=sc.algo, interpret=True))
         np.testing.assert_array_equal(img_full, img_fast,
                                       err_msg=f"{sc.algo}:fused")
 
 
 def test_perturb_band_dist_only_matches_full_kernel_band():
     """The banded p32 fast tier rides the dist-only kernel form like the
-    one-shot and sharded fast tiers (r4 review): a band's dist-colored
+    one-shot and sharded fast tiers: a band's dist-colored
     image must equal the full kernel band's zr/zi-colored image bit-for-
     bit (same frozen |z|² argument as the one-shot parity test)."""
     sc = Scene(width=48, height=36, iterations=400,
@@ -1274,111 +1281,15 @@ def test_perturb_band_dist_only_matches_full_kernel_band():
     ref, orbit = pt.resolve_reference(sc, w, h)
     P = pt._pert_params(sc, ref, w, h, orbit=orbit)
     ns = jnp.int32(orbit.n_steps)
-    planes = pt.orbit_planes(orbit)
+    packed = jnp.asarray(orbit.packed)
     start = jnp.float32(8.0)
-    zr, zi, cnt, _gl = pt._perturb_band_pallas_jit(
-        sc, planes, P, ns, start, rows=16, width=w, julia=False,
-        glitch=False, interpret=True)
-    d, cnt2 = pt._perturb_band_pallas_jit(
-        sc, planes, P, ns, start, rows=16, width=w, julia=False,
-        glitch=False, dist_only=True, interpret=True)
+    zr, zi, cnt, _gl = pt._perturb_band_kernel_jit(
+        sc, packed, P, ns, start, rows=16, width=w, glitch=False,
+        interpret=True)
+    d, cnt2 = pt._perturb_band_kernel_jit(
+        sc, packed, P, ns, start, rows=16, width=w, glitch=False,
+        dist_only=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(cnt), np.asarray(cnt2))
     img_full = np.asarray(pt._color_jit(sc, zr, zi, cnt))
     img_dist = np.asarray(pt._color_dist_jit(sc, d, cnt2))
     np.testing.assert_array_equal(img_full, img_dist)
-
-
-def test_pallas_fe_kernel_matches_twin_at_1e44():
-    """The extreme-depth floatexp Pallas kernel (VERDICT r2 next 3) must be
-    bit-identical to the XLA fe twin: same (m, e) arithmetic, same
-    freeze/count/glitch epilogue.  Run through the interpreter on CPU."""
-    sc = Scene(width=32, height=24, iterations=300,
-               pos_str=("-1.99999999999999999999999999999999999999999999"
-                        "1", "0.0"),
-               scale=(1e44, 1e44))
-    assert pt._is_extreme(sc)
-    w, h = sc.width, sc.height
-    ref, orbit = pt.resolve_reference(sc, w, h)
-    P = pt._pert_params_fe(sc, ref, w, h)
-    ns = jnp.int32(orbit.n_steps)
-    twin = pt.perturb_whole_jnp(
-        jnp.asarray(orbit.packed), P, ns, iterations=300, height=h,
-        width=w, chunk=pt.PERT_CHUNK_CPU, extreme=True)
-    kern = pt.perturb_pallas_fe(
-        pt.orbit_planes(orbit), P, ns, iterations=300, height=h, width=w,
-        julia=False, glitch=True, interpret=True, chunk=4)
-    for name, a, b in zip(("zr", "zi", "cnt", "gl"), twin, kern):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=name)
-    assert len(np.unique(np.asarray(twin[2]))) > 3  # structured view
-
-
-def test_pallas_v2_stream_kernel_matches_resident():
-    """The HBM-streaming v2 variant (double-buffered plane DMA — engaged
-    past PLANES_ROWS_MAX, forced here via the static ``stream`` arg) must
-    be bit-identical to the VMEM-resident kernel and the XLA twin: the
-    arithmetic is untouched, only the block transport changes.  Validated
-    on v5e at a 20k-iteration budget (20,064 plane rows): streaming kernel
-    55.9 ms vs twin 166.7 ms, counts bit-identical (PERF.md)."""
-    sc = Scene(width=40, height=28, iterations=230,
-               pos=(-2.0, 0.0), scale=(1e16, 1e16), precision="perturb")
-    w, h = sc.width, sc.height
-    ref, orbit = pt.resolve_reference(sc, w, h)
-    P = pt._pert_params(sc, ref, w, h, orbit=orbit)
-    ns = jnp.int32(orbit.n_steps)
-    twin = pt.perturb_whole_jnp(
-        jnp.asarray(orbit.packed), P, ns, iterations=sc.iterations,
-        height=h, width=w, chunk=16)
-    planes = pt.orbit_planes(orbit)
-    outs = {}
-    for stream in (False, True):
-        outs[stream] = pt.perturb_pallas_v2(
-            planes, P, ns, iterations=sc.iterations, height=h, width=w,
-            julia=False, glitch=True, interpret=True, chunk=16,
-            stream=stream)
-    # the streaming contract: transport-only change, EVERY output bit-equal
-    for name, res, strm in zip(("zr", "zi", "cnt", "gl"), outs[False],
-                               outs[True]):
-        np.testing.assert_array_equal(np.asarray(res), np.asarray(strm),
-                                      err_msg=f"stream:{name}")
-    # sanity vs the XLA twin: counts and glitch flags bit-equal (final-z
-    # may differ by ulps from FMA contraction — same caveat as the
-    # burning-ship kernel test above)
-    for name, a, res in zip(("cnt", "gl"), twin[2:], outs[False][2:]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(res),
-                                      err_msg=f"twin:{name}")
-    assert len(np.unique(np.asarray(twin[2]))) > 3
-
-
-def test_pallas_fe_stream_kernel_matches_resident():
-    """The fe (extreme-depth) kernel streams its planes past the VMEM cap
-    exactly like v2 (r3): the stream/resident variants and the XLA fe
-    twin must stay bit-identical — only the plane transport changes, the
-    floatexp arithmetic is untouched."""
-    sc = Scene(width=24, height=16, iterations=200,
-               pos_str=("-1.9999999999999999999999999999999999999999999"
-                        "91", "0.0"),
-               scale=(1e44, 1e44))
-    assert pt._is_extreme(sc)
-    w, h = sc.width, sc.height
-    ref, orbit = pt.resolve_reference(sc, w, h)
-    P = pt._pert_params_fe(sc, ref, w, h)
-    ns = jnp.int32(orbit.n_steps)
-    twin = pt.perturb_whole_jnp(
-        jnp.asarray(orbit.packed), P, ns, iterations=sc.iterations,
-        height=h, width=w, chunk=pt.PERT_CHUNK_CPU, extreme=True)
-    planes = pt.orbit_planes(orbit)
-    outs = {}
-    for stream in (False, True):
-        outs[stream] = pt.perturb_pallas_fe(
-            planes, P, ns, iterations=sc.iterations, height=h, width=w,
-            julia=False, glitch=True, interpret=True, chunk=4,
-            stream=stream)
-    for name, res, strm in zip(("zr", "zi", "cnt", "gl"), outs[False],
-                               outs[True]):
-        np.testing.assert_array_equal(np.asarray(res), np.asarray(strm),
-                                      err_msg=f"stream:{name}")
-    for name, a, res in zip(("zr", "zi", "cnt", "gl"), twin, outs[False]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(res),
-                                      err_msg=f"twin:{name}")
-    assert len(np.unique(np.asarray(twin[2]))) > 3

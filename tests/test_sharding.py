@@ -143,7 +143,7 @@ def test_multihost_helpers_single_process():
 
 
 def test_multihost_explicit_coordinator_failure_raises(monkeypatch):
-    """VERDICT r1 weak 7: an explicit coordinator that cannot be joined must
+    """an explicit coordinator that cannot be joined must
     raise, not silently fall back to single-host."""
     import pytest
 
@@ -171,15 +171,37 @@ def test_multihost_local_row_range_math(monkeypatch):
 
 
 def test_sharded_rejects_f64_dd64(mesh):
-    """r1 silently coerced an explicit f64/dd64 request to ds32 on a mesh;
-    it must now raise (VERDICT r1, silent degradations)."""
+    """A precision the mesh has no program for must raise, never be
+    silently coerced: dd64 raises; f64 has a stripe program (the same
+    params program as single-device f64 on the GPU) and renders."""
     import pytest
     from fractal_tpu.parallel.sharding import render_escape_sharded
 
     scene = scene_defaults("mandelbrot").replace(width=32, height=16)
-    for prec in ("f64", "dd64"):
-        with pytest.raises(ValueError, match="sharded rendering supports"):
-            render_escape_sharded(scene, mesh, precision=prec)
+    with pytest.raises(ValueError, match="sharded rendering supports"):
+        render_escape_sharded(scene, mesh, precision="dd64")
+    img = np.asarray(render_escape_sharded(scene, mesh, precision="f64"))
+    assert img.shape == (16, 32, 3)
+
+
+def test_escape_sharded_f64_matches_single_device(mesh):
+    """f64 rows interleave over the mesh like every other tier: bit-equal
+    to the single-device params-program render (the program single-device
+    f64 runs on the GPU), at a deep view with a padded stripe."""
+    import jax.numpy as jnp
+
+    from fractal_tpu.ops.escape_pallas import scene_params
+    from fractal_tpu.render import _render_escape_pallas_jit
+
+    scene = Scene(width=40, height=30, iterations=400,
+                  pos=(-0.7436447860, 0.1318252536), scale=(1e6, 1e6),
+                  inside=False)
+    single = np.asarray(_render_escape_pallas_jit(
+        scene, scene_params(scene, dtype=jnp.float64), "f64", "xla"))
+    sharded = np.asarray(render_escape_sharded(scene, mesh,
+                                               precision="f64"))
+    np.testing.assert_array_equal(sharded, single)
+    assert len(np.unique(single.reshape(-1, 3), axis=0)) > 8
 
 
 def test_mesh_for_devices_validation():
@@ -197,10 +219,10 @@ def test_mesh_for_devices_validation():
 
 
 def test_perturb_sharded_pallas_planes_matches_single_device(mesh):
-    """VERDICT r2 weak 2: the sharded deep-zoom path must run the v2 Pallas
-    planes kernel, not the XLA twin.  Forced through the Pallas interpreter
-    on the CPU mesh, the planes path must equal the single-device render
-    bit-for-bit (exact tier, glitch fallback shared)."""
+    """The sharded deep-zoom path runs the δ-orbit kernel per stripe.
+    Forced through the Pallas interpreter on the CPU mesh, it must equal
+    the single-device render bit-for-bit (exact tier, glitch fallback
+    shared)."""
     from fractal_tpu.parallel.sharding import render_perturb_sharded
 
     scene = Scene(width=64, height=44, iterations=150,
@@ -213,9 +235,9 @@ def test_perturb_sharded_pallas_planes_matches_single_device(mesh):
 
 
 def test_perturb_sharded_p32_matches_single_device(mesh):
-    """Sharded p32 must BE p32 (r2 routed it through the exact pipeline):
-    same fast-tier semantics as the single-device render, bit-for-bit, on
-    both the twin and the forced-planes path."""
+    """Sharded p32 must BE p32: same fast-tier semantics as the
+    single-device render, bit-for-bit, on both the twin and the forced
+    kernel path."""
     from fractal_tpu.ops.perturb import RENDER_STATS
     from fractal_tpu.parallel.sharding import (
         render_escape_sharded, render_perturb_sharded,
@@ -236,9 +258,8 @@ def test_perturb_sharded_p32_matches_single_device(mesh):
 def test_perturb_sharded_extreme_twin_matches_single_device(mesh):
     """Extreme depth (1e44x, floatexp) shards correctly: on the CPU mesh the
     default path runs the fe XLA twin row-interleaved; it must equal the
-    single-device render bit-for-bit.  (The fe PALLAS sharded path shares
-    the same row-map plumbing and is validated on real TPU hardware — the
-    interpret-mode kernel under shard_map is too slow for CI.)"""
+    single-device render bit-for-bit.  (The floatexp tier runs the twin
+    on every platform.)"""
     from fractal_tpu.ops import perturb as pt
     from fractal_tpu.parallel.sharding import render_perturb_sharded
 

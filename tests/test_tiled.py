@@ -104,8 +104,8 @@ def test_banded_f32_cpu_near_one_shot():
     band params) can flip a small fraction of chaotic boundary escape
     tests — measured ~0.05 % on this view, and present even between two
     jnp programs of different band shapes.  Pin the honest contract:
-    identical on ≥ 99.5 % of pixels and structured output.  (On TPU both
-    routes run the same params program and match bit-exactly.)"""
+    identical on ≥ 99.5 % of pixels and structured output.  (On the GPU
+    both routes run the same kernel and match bit-exactly.)"""
     scene = SCENE.replace(precision="f32")
     one = np.asarray(render_u8(scene))
     banded = render_tiled(scene, band_rows=40)
@@ -125,18 +125,22 @@ def test_banded_dd64_matches_one_shot_bit_exact():
 
 
 def test_banded_mesh_rejects_cpu_only_tiers():
-    """--bands --devices with an f64/dd64 tier must raise the same
-    no-silent-downgrade error as the unbanded mesh path (the sharded
-    kernels are the f32/ds32 Pallas pair) — r4 review fix: this used to
-    silently compute the f64 request at f32 across the mesh."""
-    from fractal_tpu.parallel.sharding import make_mesh
+    """--bands --devices must raise the same no-silent-downgrade error as
+    the unbanded mesh path for a tier the mesh has no program for (dd64),
+    and render the tiers it has — f64 included — bit-identical to the
+    unbanded sharded render."""
+    from fractal_tpu.parallel.sharding import make_mesh, render_escape_sharded
 
     mesh = make_mesh(2)
     scene = Scene(width=32, height=24, iterations=100,
                   pos=(-0.74364388703715871, 0.13182590420531198),
-                  scale=(1e9, 1e9))  # auto → f64 on the CPU test backend
+                  scale=(1e9, 1e9))  # auto → f64
     with pytest.raises(ValueError, match="sharded rendering supports"):
-        render_tiled(scene, band_rows=8, mesh=mesh)
+        render_tiled(scene.replace(precision="dd64"), band_rows=8,
+                     mesh=mesh)
+    banded = render_tiled(scene, band_rows=8, mesh=mesh)
+    np.testing.assert_array_equal(
+        banded, np.asarray(render_escape_sharded(scene, mesh)))
 
 
 def test_fern_rejected():
